@@ -1,23 +1,22 @@
-"""Benchmark: ray-cast + path-trace throughput on a mesh-heavy scene.
+"""Benchmark: ray-cast + path-trace throughput on a mesh-heavy scene (GPU).
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "device", "extra"}.
 
-Workload (VERDICT.md round-2 item 3): ~135k-triangle tessellated mesh
-over a ground plane at 1024x1024, traced through the TPU packet
-pipeline (accel/wide_bvh.py + ops/bvh_pallas.py: coherence sort,
-dense frustum cull, Pallas Moller-Trumbore sweep).
+Workload: ~135k-triangle tessellated mesh over a ground plane at
+1024x1024, traced through the packet pipeline (accel/wide_bvh.py +
+ops/bvh_pallas.py: coherence sort, culling, Pallas Moller-Trumbore
+leaf sweep).
 
 Headline metric: camera-ray casts/second through the accelerated
 t-pass — the reference's hottest loop (accelerators/bvh.cpp:585-687).
-The reference publishes no numbers (BASELINE.md); the anchor is the
-same fixed 1e6 rays/s CPU-class figure recorded in BENCH_r01/r02, so
-vs_baseline stays comparable across rounds. The JSON "extra" carries:
+The reference publishes no numbers (BASELINE.md). Refuses to run
+without a GPU. The JSON "extra" carries:
 - path_cam_rays_per_s: full path trace, depth 5, 1024^2
 - grad_rays_per_s: BACKWARD pass — jax.grad of the same 1024^2 path
   trace w.r.t. the per-material albedo scale (BASELINE.json's
   "grad-rays/s/chip (bwd) at 1024^2" metric), run in 4 tiles
 - photons_per_s / photon-map build+march metrics for the signature
-  photon-volume pipeline (VERDICT r4 item 2)
+  photon-volume pipeline
 """
 from __future__ import annotations
 
@@ -28,7 +27,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-BASELINE_RAYS_PER_S = 1.0e6
 RES = 1024
 DEPTH = 5
 
@@ -39,9 +37,14 @@ def main():
     import jax.numpy as jnp
 
     from scripts.bench_scene import make_bench_scene, camera_rays
+    from pbrt_tpu.compile_cache import enable_compile_cache
     from pbrt_tpu.core.geometry import Ray
     from pbrt_tpu.integrators.surface import li_path
 
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        sys.exit(f"bench.py: needs a GPU; JAX found {dev.platform!r}")
+    enable_compile_cache()
     scene = make_bench_scene()
     n = RES * RES
     ray = camera_rays(RES)
@@ -133,56 +136,50 @@ def main():
 
     # --- BACKWARD throughput: grad of the 1024^2 path trace w.r.t. the
     # per-material albedo scale, tiled 4x (the tape for 1M rays x depth
-    # 5 exceeds HBM; tiling accumulates the same total gradient)
-    grad_rays_per_s = 0.0
-    try:
-        from pbrt_tpu.diff import DiffParams, apply_params
+    # 5 does not fit device memory; tiling accumulates the same total
+    # gradient)
+    from pbrt_tpu.diff import DiffParams, apply_params
 
-        M = len(scene.materials)
-        SB = 30
-        TIL = 4
-        nt = n // TIL
+    M = len(scene.materials)
+    SB = 30
+    TIL = 4
+    nt = n // TIL
 
-        @jax.jit
-        def gstep(s, o, d, pix):
-            def loss(s):
-                sc = apply_params(scene, DiffParams(kd_scale=s))
-                r = Ray(o, d, jnp.zeros(nt), jnp.full((nt,), jnp.inf),
-                        jnp.zeros(nt))
-                return jnp.mean(li_path(sc, r, pix, jnp.zeros(nt, jnp.int32),
-                                        max_depth=DEPTH, seed=0))
-            return jax.grad(loss)(s)
+    @jax.jit
+    def gstep(s, o, d, pix):
+        def loss(s):
+            sc = apply_params(scene, DiffParams(kd_scale=s))
+            r = Ray(o, d, jnp.zeros(nt), jnp.full((nt,), jnp.inf),
+                    jnp.zeros(nt))
+            return jnp.mean(li_path(sc, r, pix, jnp.zeros(nt, jnp.int32),
+                                    max_depth=DEPTH, seed=0))
+        return jax.grad(loss)(s)
 
-        s0 = jnp.ones((M, SB), jnp.float32)
-        g = None
-        for ti in range(TIL):
-            sl = slice(ti * nt, (ti + 1) * nt)
-            gt = gstep(s0, ray.o[sl], ray.d[sl], pixel[sl])
-            g = gt if g is None else g + gt
-        g.block_until_ready()
-        t0 = time.perf_counter()
-        for ti in range(TIL):
-            sl = slice(ti * nt, (ti + 1) * nt)
-            g = gstep(s0, ray.o[sl], ray.d[sl], pixel[sl])
-        g.block_until_ready()
-        grad_dt = time.perf_counter() - t0
-        assert bool(jnp.all(jnp.isfinite(g)))
-        grad_rays_per_s = n / grad_dt
-    except Exception as e:  # never fail the whole bench on the bwd leg
-        print(f"# grad bench failed: {e!r}", file=sys.stderr)
+    s0 = jnp.ones((M, SB), jnp.float32)
+    g = None
+    for ti in range(TIL):
+        sl = slice(ti * nt, (ti + 1) * nt)
+        gt = gstep(s0, ray.o[sl], ray.d[sl], pixel[sl])
+        g = gt if g is None else g + gt
+    g.block_until_ready()
+    t0 = time.perf_counter()
+    for ti in range(TIL):
+        sl = slice(ti * nt, (ti + 1) * nt)
+        g = gstep(s0, ray.o[sl], ray.d[sl], pixel[sl])
+    g.block_until_ready()
+    grad_dt = time.perf_counter() - t0
+    assert bool(jnp.all(jnp.isfinite(g)))
+    grad_rays_per_s = n / grad_dt
 
     # --- photon pipeline: shooting, kNN lookups, photonvolume march ---
-    photon_stats = {}
-    try:
-        photon_stats = bench_photon_pipeline()
-    except Exception as e:
-        print(f"# photon bench failed: {e!r}", file=sys.stderr)
+    photon_stats = bench_photon_pipeline()
 
     print(json.dumps({
         "metric": "bvh_ray_casts_per_s",
         "value": round(cast_rays_per_s, 1),
         "unit": "rays/s",
-        "vs_baseline": round(cast_rays_per_s / BASELINE_RAYS_PER_S, 3),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
         "extra": {
             "scene_tris": int(scene.geom.n_tris),
             "resolution": RES,
@@ -200,8 +197,7 @@ def main():
 
 
 def bench_photon_pipeline():
-    """Photon-volume pipeline throughput (VERDICT r4 weak 1: the
-    signature workload was unmeasured). Three legs on a scattering
+    """Photon-volume pipeline throughput. Three legs on a scattering
     homogeneous cube + point light (pinkfloyd's structure, reduced):
     - photons_per_s: wavefront shooting, depth 5, Woodcock media
     - knn_lookups_per_s: fused blocked kNN at pinkfloyd's nused=500

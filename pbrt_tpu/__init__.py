@@ -1,9 +1,9 @@
-"""pbrt_tpu — a TPU-native physically based renderer (JAX/XLA/Pallas).
+"""pbrt_tpu — a physically based renderer in JAX (XLA/Pallas), run on GPUs.
 
 A from-scratch re-design of the capabilities of piwell/CS348B-pbrt
 (a pbrt-v2 fork with spectral dispersion, volumetric photon mapping,
 a rainbow scattering volume, an AAC BVH builder and a realistic lens
-camera) for TPU hardware:
+camera) for accelerators driven by JAX:
 
 - recursive CPU integrators  ->  wavefront `lax.scan` ray/photon batches
 - pointer BVH / kd-trees     ->  flattened node arrays + vectorized and
@@ -42,12 +42,12 @@ if "--distributed" in _sys.argv or _os.environ.get("PBRT_COORDINATOR"):
     _jax.distributed.initialize(**_kw)
     _DISTRIBUTED = True
 
-# TPU MXU contractions default to bfloat16 inputs; geometry is extremely
-# sensitive to the lost mantissa bits (round 3: shadow-ray origins
-# quantized to ~2^-8 caused false self-shadow wedges = 25% image energy
-# loss on the TPU backend). All jnp matmul/einsum/dot in this package
-# must be exact f32. The hot 3x3 transform applies additionally bypass
-# the MXU entirely (core/transform.py explicit mul/adds on the VPU).
+# On the GPU, XLA runs float32 matmul/einsum/dot in TF32 by default
+# (~10 mantissa bits); geometry is extremely sensitive to the lost bits
+# (shadow-ray origins quantized that coarsely cause false self-shadow
+# wedges). All jnp contractions in this package must be exact f32. The
+# hot 3x3 transform applies are explicit mul/adds anyway
+# (core/transform.py).
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from pbrt_tpu.core import spectrum  # noqa: F401

@@ -540,17 +540,16 @@ def t_pass_bvh(bvh: BVH, geom: SceneGeom, ray: Ray, any_hit: bool = False):
 
 
 class BvhScene(NamedTuple):
-    """Geometry + acceleration. On TPU, triangle-heavy scenes use the
-    packet-traversal pipeline (accel/wide_bvh.py + ops/bvh_pallas.py):
-    coherence-sorted ray tiles, dense frustum culling over wide leaf
-    blocks, and a Pallas Moller-Trumbore sweep. Smaller scenes use the
-    flat blocked Pallas kernel; the pure-jnp short-stack BVH remains
-    the portable fallback (CPU tests, motion blur)."""
+    """Geometry + acceleration. On the GPU, triangle-heavy static scenes
+    use the packet-traversal pipeline (accel/wide_bvh.py +
+    ops/bvh_pallas.py): coherence-sorted ray tiles, culling over wide
+    leaf blocks, and a Pallas Moller-Trumbore leaf sweep. Otherwise the
+    pure-jnp paths: the short-stack BVH for large scenes, the blocked
+    brute-force scan for small ones."""
 
     geom: SceneGeom
     bvh: Optional[BVH]
-    tri_soa: object = None   # ops.intersect_pallas.TriSoA when on TPU
-    wide: object = None      # accel.wide_bvh.WideBVH when on TPU
+    wide: object = None      # accel.wide_bvh.WideBVH (GPU packet pipeline)
 
     def _t_pass(self, ray: Ray, any_hit: bool = False,
                 coherent: bool = False):
@@ -566,15 +565,6 @@ class BvhScene(NamedTuple):
             return t, prim
         if self.bvh is not None:
             return t_pass_bvh(self.bvh, self.geom, ray, any_hit=any_hit)
-        if self.tri_soa is not None:
-            from pbrt_tpu.accel.intersect import _quad_t_pass
-            from pbrt_tpu.ops.intersect_pallas import tri_t_pass_pallas
-
-            t, prim = tri_t_pass_pallas(self.tri_soa, ray.o, ray.d,
-                                        ray.tmin, ray.tmax)
-            if self.geom.n_quads > 0:
-                t, prim = _quad_t_pass(self.geom, ray, t, prim)
-            return t, prim
         from pbrt_tpu.accel.intersect import t_pass_brute
 
         return t_pass_brute(self.geom, ray)
@@ -591,32 +581,29 @@ class BvhScene(NamedTuple):
 def make_accel(geom: SceneGeom, split_method: str = "sah",
                bvh_threshold: int = 32768, force: str = "",
                wide_threshold: int = 8192) -> BvhScene:
-    """Pick the acceleration strategy for a compiled scene."""
-    from pbrt_tpu.ops.intersect_pallas import pallas_available
+    """Pick the acceleration strategy for a compiled scene.
 
+    The choice follows the backend JAX runs on:
+      "gpu" — the packet pipeline with the Pallas leaf-sweep kernel for
+              static scenes with >= wide_threshold triangles;
+      "cpu" — the jnp paths only;
+    then, on either, the jnp BVH above bvh_threshold primitives and the
+    brute-force scan below it; force="bvh" / "flat" pins one of those.
+    Any other backend is an error."""
+    backend = jax.default_backend()
+    if backend not in ("gpu", "cpu"):
+        raise ValueError(f"make_accel: unsupported JAX backend {backend!r} "
+                         "(expected 'gpu' or 'cpu')")
     n_prims = geom.n_tris + geom.n_quads
-    tri_soa = None
-    bvh = None
-    wide = None
-    on_tpu = pallas_available()
-    # TPU packet pipeline for triangle-heavy static scenes
-    if (force in ("", "wide") and on_tpu and not geom.has_motion
-            and geom.n_tris >= (1 if force == "wide" else wide_threshold)):
+    if (backend == "gpu" and not force and not geom.has_motion
+            and geom.n_tris >= wide_threshold):
         narrow = build_bvh(geom, split_method)
         if narrow is not None:
             from pbrt_tpu.accel.wide_bvh import build_wide_bvh
 
             wide = build_wide_bvh(narrow, geom)
-        if wide is not None:
-            return BvhScene(geom=geom, bvh=None, tri_soa=None, wide=wide)
+            if wide is not None:
+                return BvhScene(geom=geom, bvh=None, wide=wide)
     use_bvh = force == "bvh" or (force != "flat" and n_prims > bvh_threshold)
-    if use_bvh and n_prims > 0:
-        bvh = build_bvh(geom, split_method)
-    else:
-        # the Pallas flat kernel has no motion path; motion scenes use the
-        # jnp block scan (still vectorized, just not hand-tiled)
-        if on_tpu and geom.n_tris > 0 and not geom.has_motion:
-            from pbrt_tpu.ops.intersect_pallas import TriSoA
-
-            tri_soa = TriSoA(geom.tri_v0, geom.tri_e1, geom.tri_e2)
-    return BvhScene(geom=geom, bvh=bvh, tri_soa=tri_soa)
+    bvh = build_bvh(geom, split_method) if use_bvh and n_prims > 0 else None
+    return BvhScene(geom=geom, bvh=bvh)

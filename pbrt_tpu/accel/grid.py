@@ -1,7 +1,7 @@
 """Uniform-grid accelerator: host CSR build + wavefront 3DDDA traversal.
 
 Replaces reference accelerators/grid.{h,cpp} (GridAccel: voxel grid with
-3DDDA stepping, grid.cpp:324 `refineimmediately`). TPU-first design:
+3DDDA stepping, grid.cpp:324 `refineimmediately`). Wavefront design:
 
 - Host build (NumPy): voxel resolution per axis follows the reference's
   heuristic `3 * cbrt(nPrims) / maxExtent`, clamped to [1, 64] voxels

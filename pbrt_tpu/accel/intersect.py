@@ -75,10 +75,8 @@ class SceneGeom(NamedTuple):
     quad_w2o_end: jnp.ndarray = None  # [Q, 4, 4] its inverse (host-computed)
     time0: float = 0.0            # shutter open  (transform keyframe times)
     time1: float = 1.0            # shutter close
-    # Packed per-primitive reconstruct rows (round-4 perf): ONE row
-    # gather per hit instead of ~15 small-minor-dim gathers (each of
-    # which pads its row to a 128-lane tile on TPU — reconstruct cost
-    # was 1.8x the entire traversal). Layouts documented in
+    # Packed per-primitive reconstruct rows: ONE row gather per hit
+    # instead of ~15 small-minor-dim gathers. Layouts documented in
     # _reconstruct_packed. Built by compile_scene; None in hand-rolled
     # test geometries (reconstruct falls back to per-field gathers).
     tri_pack: jnp.ndarray = None   # [T, 27 (+9 motion)] f32
@@ -117,7 +115,7 @@ class SceneGeom(NamedTuple):
         """(o2w, w2o) for quadrics at ray time: matrix-lerp of both
         keyframe transforms (host-precomputed inverses). Endpoints are
         exact; in between, linear — same first-order approximation as the
-        triangle vertex motion, and friendly to the TPU fusion pass
+        triangle vertex motion, and friendly to XLA fusion
         (pure broadcast lerp, no per-ray matrix inversion)."""
         o2w = self.quad_o2w[idx]
         if self.quad_o2w_end is None:
@@ -614,9 +612,9 @@ def _coord_sys_c(nx, ny, nz):
 def _reconstruct_packed(geom: SceneGeom, ray: Ray, t, prim) -> Hit:
     """Differential geometry via ONE [N, C] row gather per table.
 
-    All math runs on split [N] components (minor-dim-3 tensors pay a
-    ~4x layout penalty on TPU; row gathers of many small tables pay
-    far more) and stacks into the [N, 3] Hit fields once at the end."""
+    All math runs on split [N] components (row gathers of many small
+    tables cost far more) and stacks into the [N, 3] Hit fields once
+    at the end."""
     R = ray.o.shape[0]
     T = geom.n_tris
     valid = prim >= 0

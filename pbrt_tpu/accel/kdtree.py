@@ -12,7 +12,7 @@ then flattened to tensors:
                           leaf     (3, prim_offset, n_prims<=LEAF_MAX)
   prim_ids   [P]   int32 CSR leaf prim list (global ids)
 
-TPU-first traversal: classic (node, t_near, t_far) short-stack kd
+Wavefront traversal: classic (node, t_near, t_far) short-stack kd
 descent, run lockstep across the ray wavefront inside one
 lax.while_loop (no recursion, no pointers). Front-to-back ordering
 gives the reference's early exit: once a leaf hit lands inside the

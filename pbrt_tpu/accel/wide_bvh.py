@@ -1,17 +1,16 @@
-"""Wide-leaf BVH for the TPU packet-traversal kernel.
+"""Wide-leaf BVH for the packet-traversal pipeline.
 
 The reference's hot loop is a per-ray BVH node walk with 1-4 triangle
-leaves (accelerators/bvh.cpp:585-687). That shape is hostile to a
-128-lane vector machine: the TPU-native re-design collapses the binary
-SAH tree into leaves of up to LEAF_W=128 triangles, so that
+leaves (accelerators/bvh.cpp:585-687): divergent, pointer-chasing work.
+The packet re-design collapses the binary SAH tree into leaves of up
+to LEAF_W=128 triangles, so that
 
-  * the node table shrinks ~40x (fits VMEM / cheap to gather),
-  * every leaf is exactly one 128-lane-aligned block of a
-    component-major [16, P'] triangle table, which the Pallas sweep
-    kernel (ops/bvh_pallas.py) can fetch with a block-gather
-    index_map (lane offsets must be multiples of 128 on TPU),
-  * traversal happens per ray-PACKET (shared stack per tile) instead
-    of per ray, so stack bookkeeping is O(tiles), not O(rays).
+  * culling is a dense [rays, leaf blocks] box test (B ~ prims/100),
+  * every leaf is one contiguous block of a component-major [16, P']
+    triangle table, which the leaf-sweep kernel (ops/bvh_pallas.py)
+    reads as LEAF_W-wide row slices,
+  * rays are swept per PACKET of TILE rays sharing one leaf list, so
+    list bookkeeping is O(tiles), not O(rays).
 
 Build path: the normal (narrow) BVH build — native C++ builder when
 available — then a host collapse pass over the flattened tree.
@@ -23,8 +22,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import jax.numpy as jnp
 
-LEAF_W = 128          # triangles per wide leaf == one lane-aligned block
-TILE = 1024           # rays per packet (Phase A/B tile; multiple of 128)
+LEAF_W = 128          # triangles per wide leaf block
+TILE = 1024           # rays per packet sharing one leaf list
 MAX_L = 64            # leaf-list slots per tile per wave
 
 

@@ -9,7 +9,7 @@ AutoFocus renders 16spp zone crops and hill-climbs film distance on
 Sum-Modified-Laplacian sharpness with a log-parabola peak fit
 (:254-424).
 
-TPU form: the element loop is unrolled over the (static, ~10-20) lens
+Wavefront form: the element loop is unrolled over the (static, ~10-20) lens
 rows with masked early-outs — rays that miss an aperture carry
 weight 0 instead of returning early. Autofocus drives the SAME jitted
 mini-render per candidate film distance.

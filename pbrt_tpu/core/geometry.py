@@ -1,6 +1,6 @@
 """Vector/ray/bbox math on batched `[..., 3]` arrays.
 
-TPU-native replacement for the reference's scalar `Point/Vector/Normal/
+Batched replacement for the reference's scalar `Point/Vector/Normal/
 Ray/BBox` classes (reference: core/geometry.h). Everything here is a pure
 function over jnp arrays whose last axis is xyz, so a "Vector" is any
 array shaped [..., 3] and all ops broadcast over leading (wavefront)

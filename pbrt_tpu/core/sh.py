@@ -6,7 +6,7 @@ cosine-lobe convolution (lambda_l), and Monte Carlo projection of
 environment maps / incident radiance. The z-axis rotation and the
 full rotation matrices of shrots.cpp are replaced where consumed
 (glossyprt) by re-projection, which vectorizes better than banded
-rotation matrices on TPU.
+rotation matrices.
 """
 from __future__ import annotations
 
@@ -117,7 +117,7 @@ def sphere_quadrature(n_theta: int = 32, n_phi: int = 64):
 # SH rotation (reference core/shrots.cpp SHRotate / sh.h:55-58).
 #
 # The reference carries 1471 lines of generated per-band rotation code;
-# the TPU build computes the same block-diagonal real-SH rotation
+# this build computes the same block-diagonal real-SH rotation
 # matrices with the Ivanic-Ruedenberg recurrence (J. Phys. Chem. 1996,
 # with the 1998 errata signs) on the host — rotation matrices are tiny
 # ((2l+1)^2 per band) and scene-constant, so host NumPy is the right

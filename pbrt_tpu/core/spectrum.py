@@ -1,6 +1,6 @@
 """Sampled spectra as `[..., N_BINS]` arrays (default 30 bins, 400-700nm).
 
-TPU-native replacement for the reference's `SampledSpectrum`
+Batched replacement for the reference's `SampledSpectrum`
 (reference: core/spectrum.h:44-46 picks 30 bins over [400,700);
 core/pbrt.h:157 makes it the active Spectrum type). A spectrum here is
 just a jnp array whose last axis has N_BINS entries, so whole wavefronts

@@ -23,11 +23,11 @@ import jax.numpy as jnp
 # Device-side batched application (works on np or jnp)
 
 # NOTE: these applies are written as explicit component mul/adds, NOT
-# einsum/matmul. On TPU a dim-3 contraction would be routed to the MXU,
-# whose default bfloat16 operand rounding quantizes coordinates to ~2^-8
-# — enough to push shadow-ray origins through surfaces (round-3 TPU
-# energy-loss bug). Componentwise math stays on the VPU in full f32 and
-# is also faster than multi-pass f32 MXU emulation at these tiny sizes.
+# einsum/matmul: a dim-3 contraction gains nothing from a matrix unit,
+# and componentwise math stays in full f32 whatever precision the
+# backend would pick for a contraction (reduced-precision operands
+# quantize coordinates enough to push shadow-ray origins through
+# surfaces).
 
 def _apply33(m, v, xp):
     """[..., 3, 3] x [..., 3] -> [..., 3] componentwise."""

@@ -22,7 +22,7 @@ albedos, and light power. This module is the parameter plumbing:
 
 Reference mapping: the reference renderer (core/photonshooter.cpp,
 integrators/photonvolume.cpp:215) has no gradients at all; this is the
-TPU build's extension, with the march recurrence differentiated by
+this build's extension, with the march recurrence differentiated by
 `jax.grad` through the `lax.fori_loop`-as-scan march bodies.
 """
 from __future__ import annotations

@@ -8,7 +8,7 @@ light j) vertex pair is connected with a visibility ray; each completed
 path length k is down-weighted by 1/(k - nSpecularVertices[k]) exactly
 as the reference does (metropolis.cpp:449-452).
 
-TPU-first design: both subpaths are generated wavefront-style for W
+Wavefront design: both subpaths are generated wavefront-style for W
 chains in lockstep with per-vertex state stacked in unrolled Python
 lists (static trip count = maxdepth, XLA fuses the bodies); the i*j
 connection sweep is a static double loop of masked [W]-lane evaluations.

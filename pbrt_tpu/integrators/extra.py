@@ -1,7 +1,7 @@
 """Remaining surface integrators: igi, irradiancecache, dipole
 subsurface, and the SH/PRT trio (diffuseprt, glossyprt, useprobes).
 
-TPU-first redesigns (documented deviations from the CPU algorithms):
+Wavefront redesigns (documented deviations from the CPU algorithms):
 
 - igi (reference integrators/igi.cpp): VPL sets are generated in a
   wavefront precompute (light paths, same machinery as the photon
@@ -9,7 +9,7 @@ TPU-first redesigns (documented deviations from the CPU algorithms):
   gLimit clamping. Identical estimator; the task-local set choice
   becomes a hash pick.
 - irradiancecache (reference integrators/irradiancecache.cpp): the
-  octree cache is a serial-adaptivity optimization; the TPU form
+  octree cache is a serial-adaptivity optimization; the wavefront form
   computes hemisphere irradiance directly per hit (nsamples cosine
   rays, one bounce of path radiance). Same image in the limit, no
   cross-ray mutable cache.
@@ -17,7 +17,7 @@ TPU-first redesigns (documented deviations from the CPU algorithms):
   surface points from the surfacepoints renderer; irradiance at each
   point in one wavefront pass; Li sums the classic dipole diffusion
   Rd over ALL points (dense masked sum instead of the octree cut —
-  MXU-friendly at the point counts pbrt uses).
+  one fused reduction at the point counts pbrt uses).
 - diffuseprt/glossyprt (reference integrators/{diffuseprt,glossyprt}
   .cpp): per-hit MC projection of visibility x cos into SH dotted
   with the light's SH projection; glossyprt convolves with the

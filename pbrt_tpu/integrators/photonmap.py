@@ -165,8 +165,7 @@ def _final_gather(scene, ctx, lobes, frame, p, wo, pixel, sidx, depth, seed):
     # (reference :193-207, nIndirSamplePhotons=50; the reference doubles
     # the search radius until 50 are found — the grid gather uses a
     # generous fixed radius instead and tolerates fewer). Directions as
-    # split [N, K] components (a [N, K, 3] tensor would pad 3->128 on
-    # TPU).
+    # split [N, K] components.
     N_IND = 50
     pdx, pdy, pdz, pd_valid = knn_dirs(ctx.indirect, p, N_IND,
                                        ctx.max_dist2 * 16.0)

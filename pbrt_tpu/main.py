@@ -50,6 +50,9 @@ def main(argv=None):
 
             jax.distributed.initialize()
 
+    from pbrt_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     options = {
         "nCores": args.ncores,
         "imageFile": args.outfile,

@@ -5,7 +5,7 @@ Reference: materials/measured.cpp:215 (CreateMeasuredMaterial),
 core/reflection.h:482-509 (IrregIsotropicBRDF / RegularHalfangleBRDF)
 and core/reflection.cpp (their f() implementations).
 
-TPU-first design: both formats are lowered at load time to ONE regular
+Wavefront design: both formats are lowered at load time to ONE regular
 half-angle table [TH, TD, PD, 3] (RGB), the MERL parameterization
 (theta_half sqrt-mapped, theta_diff, phi_diff). Evaluation is then a
 single nearest-cell gather per lane — no kd-tree visitor (the

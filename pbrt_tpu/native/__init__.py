@@ -23,9 +23,9 @@ def _build_dir() -> str:
 
 
 def _cache_dir() -> str:
-    d = os.environ.get(
-        "PBRT_TPU_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "pbrt_tpu"))
+    """Where the compiled library lives: `$PBRT_TPU_CACHE`, else next to
+    its source inside the checkout (`*.so` there is git-ignored)."""
+    d = os.environ.get("PBRT_TPU_CACHE") or _build_dir()
     os.makedirs(d, exist_ok=True)
     return d
 

@@ -1,179 +1,179 @@
-"""TPU packet BVH traversal: jnp frustum walk + Pallas leaf sweep.
+"""Packet BVH traversal: jnp culling + a Pallas (Triton) leaf sweep.
 
 Replaces the per-ray short-stack walk (reference accelerators/bvh.cpp
-:585-687) with a two-phase wavefront design shaped for the TPU:
+:585-687) with a two-phase wavefront design:
 
   Phase A (jnp): rays are sorted by a coherence key (origin Morton,
   then direction octant + direction Morton) and grouped into TILE-ray
-  packets. Candidate leaf blocks come from an EXACT dense per-ray slab
-  test ([R, B] fused on the VPU, reduced to per-tile nearest-first
-  lists) — precise even for direction-incoherent secondary bounces,
-  where a conservative tile-frustum test degenerates to "everything".
+  packets. Candidate leaf blocks come either from a per-wave tile-
+  frustum test (beam-like batches) or from an EXACT dense per-ray slab
+  test ([R, B], reduced to per-tile nearest-first lists), which stays
+  precise for direction-incoherent secondary bounces where a
+  conservative tile-frustum test degenerates to "everything".
 
-  Phase B (Pallas): the per-tile lists are compacted into a flat
-  (tile, leaf-block) pair list — cost scales with real work, not the
-  list capacity. A 1D grid sweeps the pairs: each step block-gathers
-  the leaf's (16, 128) component-major triangle block — selected by a
-  scalar-prefetched block id in the BlockSpec index_map — and runs
-  Moller-Trumbore for the tile's TILE rays on the VPU, folding the
-  per-ray (t, prim) minimum. Pairs are tile-sorted, so revisits of a
-  tile's accumulator are consecutive; accumulators are input/output
-  aliased so blocks untouched by a chunk keep their prior values.
+  Phase B (Pallas, Triton route): grid (T, TILE // RB); program (t, s)
+  owns RB rays of ray tile t. It reads tile t's leaf list itself, loops
+  over it, loads each [16, LEAF_W] component-major leaf block slice by
+  slice and folds Moller-Trumbore's per-ray (t, slot) minimum in
+  registers. Each ray's result is written once, so no accumulator is
+  shared between programs and program order does not matter.
 
   Waves: A fills lists -> B sweeps -> per-tile t_max tightens -> A
-  resumes from the saved stacks. Repeats until every stack drains,
-  which also makes leaf-list overflow benign (stalled tiles simply
-  continue next wave).
+  takes the next window. Repeats until every list drains, which also
+  makes leaf-list overflow benign (stalled tiles continue next wave).
 """
 from __future__ import annotations
 
 import functools
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 from pbrt_tpu.accel.wide_bvh import WideBVH, LEAF_W, TILE, MAX_L
 
-# accumulator sublane count: (ACC_S, 128) tiles span one ray tile
-ACC_S = TILE // 128
-
 BIG = 1e30
-DEPTH = 64          # per-packet stack depth (wide tree depth << this)
-CHUNK = 1 << 20     # rays per dispatch (bounds pair-list / SMEM size)
-PAIR_CHUNK = 16384  # (tile, leaf) pairs per Pallas dispatch
+CHUNK = 1 << 20     # rays per dispatch (bounds the [T, B] cull tables)
+
+# Leaf-sweep launch shape: RB rays per program, TC triangles per inner
+# step ([RB, TC] Moller-Trumbore tile in registers). Powers of two;
+# picked on an H100 (registers, not shared memory, bound the tile).
+RB = 32
+TC = 32
+NUM_WARPS = 4
+NUM_STAGES = 1
 
 
 # ---------------------------------------------------------------------------
-# Phase B: Pallas pair sweep
+# Phase B: leaf sweep
 
-KP = 4              # pairs swept per grid step (amortizes step overhead)
+def _mt_fold(o, d, tmin, tb, pb, tri_row, off, tc):
+    """Fold one [RB, tc] Moller-Trumbore tile into the running per-ray
+    (t, slot). o/d: 3-tuples of [RB, 1]; tri_row(r) -> [1, tc] row r of
+    the component-major triangle slice starting at slot `off`. The
+    running best t is the upper bound, so ties keep the earlier slot."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z = tri_row(0), tri_row(1), tri_row(2)
+    e1x, e1y, e1z = tri_row(3), tri_row(4), tri_row(5)
+    e2x, e2y, e2z = tri_row(6), tri_row(7), tri_row(8)
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok_det = jnp.abs(det) > 1e-12
+    inv_det = jnp.where(ok_det, 1.0 / det, 0.0)
+    tvx = ox - v0x
+    tvy = oy - v0y
+    tvz = oz - v0z
+    b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    b2 = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    valid = (ok_det & (b1 >= 0.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
+             & (t > tmin) & (t < tb[..., None]))
+    t = jnp.where(valid, t, BIG)
+    t_min = jnp.min(t, axis=-1)
+    lane = lax.broadcasted_iota(jnp.int32, t.shape, t.ndim - 1)
+    first = jnp.min(jnp.where(t == t_min[..., None], lane, tc), axis=-1)
+    better = t_min < tb
+    return (jnp.where(better, t_min, tb),
+            jnp.where(better, off + first, pb))
 
 
-def _make_sweep_kernel(sentinel_block):
-    def _sweep_kernel(pt_ref, pb_ref, rays_ref, tin_ref, pin_ref,
-                      tris0_ref, tris1_ref, tris2_ref, tris3_ref,
-                      tout_ref, pout_ref):
-        import jax.experimental.pallas as pl
+def _sweep_kernel(lst_ref, nl_ref, rays_ref, tin_ref, pin_ref, tris_ref,
+                  tout_ref, pout_ref, *, tc):
+    tile = pl.program_id(0)
+    col = [rays_ref[k, :][:, None] for k in range(7)]
+    o, d, tmin = tuple(col[0:3]), tuple(col[3:6]), col[6]
 
-        g = pl.program_id(0)
-        prev_tile = pt_ref[jnp.maximum(g * KP - KP, 0)]
-        tile = pt_ref[g * KP]
-        first = (g == 0) | (tile != prev_tile)
+    def leaf(i, carry):
+        base = lst_ref[tile, i] * LEAF_W
 
-        @pl.when(first)
-        def _():
-            tout_ref[:] = tin_ref[:]
-            pout_ref[:] = pin_ref[:]
+        def step(c, carry):
+            off = base + c * tc
+            return _mt_fold(
+                o, d, tmin, *carry,
+                lambda r: tris_ref[r, pl.ds(off, tc)][None, :], off, tc)
 
-        rays = rays_ref[:]           # [TILE, 8]
-        ox, oy, oz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]
-        dx, dy, dz = rays[:, 3:4], rays[:, 4:5], rays[:, 5:6]
-        tmin, tmax = rays[:, 6:7], rays[:, 7:8]
+        return lax.fori_loop(0, LEAF_W // tc, step, carry)
 
-        for k, tref in enumerate((tris0_ref, tris1_ref, tris2_ref, tris3_ref)):
-            b = pb_ref[g * KP + k]
-
-            # sentinel (padding) sub-pairs only exist to keep shapes
-            # static — skip their compute entirely
-            @pl.when(b != sentinel_block)
-            def _(b=b, tref=tref):
-                tris = tref[:]       # [16, LEAF_W]
-                v0x, v0y, v0z = tris[0:1, :], tris[1:2, :], tris[2:3, :]
-                e1x, e1y, e1z = tris[3:4, :], tris[4:5, :], tris[5:6, :]
-                e2x, e2y, e2z = tris[6:7, :], tris[7:8, :], tris[8:9, :]
-
-                pvx = dy * e2z - dz * e2y
-                pvy = dz * e2x - dx * e2z
-                pvz = dx * e2y - dy * e2x
-                det = e1x * pvx + e1y * pvy + e1z * pvz
-                inv_det = jnp.where(jnp.abs(det) > 1e-12, 1.0 / det, 0.0)
-                tvx = ox - v0x
-                tvy = oy - v0y
-                tvz = oz - v0z
-                b1 = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-                qvx = tvy * e1z - tvz * e1y
-                qvy = tvz * e1x - tvx * e1z
-                qvz = tvx * e1y - tvy * e1x
-                b2 = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-                t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-                valid = (
-                    (jnp.abs(det) > 1e-12)
-                    & (b1 >= 0.0) & (b2 >= 0.0) & (b1 + b2 <= 1.0)
-                    & (t > tmin) & (t < tmax)
-                )
-                t = jnp.where(valid, t, BIG)
-                t_blk = jnp.min(t, axis=1).reshape(1, ACC_S, 128)
-                idx_blk = jnp.argmin(t, axis=1).astype(jnp.int32).reshape(
-                    1, ACC_S, 128)
-                prim_blk = b * LEAF_W + idx_blk
-                better = t_blk < tout_ref[:]
-                tout_ref[:] = jnp.where(better, t_blk, tout_ref[:])
-                pout_ref[:] = jnp.where(better, prim_blk, pout_ref[:])
-    return _sweep_kernel
+    tb, pb = lax.fori_loop(0, nl_ref[tile], leaf,
+                           (tin_ref[...], pin_ref[...]))
+    tout_ref[...] = tb
+    pout_ref[...] = pb
 
 
 @functools.partial(jax.jit, static_argnames=("interpret",))
-def _sweep_pairs(pair_tile, pair_block, rays8, t_in, prim_in, tris16,
-                 interpret=False):
-    """pair_* [PAIR_CHUNK] i32, tile-sorted, KP pairs per step sharing a
-    tile (intra-tile padding = sentinel block, whole-step padding =
-    sentinel tile); rays8 [(T+1)*TILE, 8]; t/prim [T+1, ACC_S, 128]."""
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+def sweep_leaves(lst, nl, rays8, t_in, p_in, tris16, interpret=False):
+    """One wave of the leaf sweep (Pallas kernel, Triton route).
 
-    Tp = t_in.shape[0]
-    n_blocks_pad = tris16.shape[1] // LEAF_W   # includes sentinel block
-    tri_spec = lambda k: pl.BlockSpec(
-        (16, LEAF_W), (lambda g, pt, pb, k=k: (0, pb[g * KP + k])),
-        memory_space=pltpu.VMEM)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(PAIR_CHUNK // KP,),
-        in_specs=[
-            pl.BlockSpec((TILE, 8), lambda g, pt, pb: (pt[g * KP], 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, ACC_S, 128),
-                         lambda g, pt, pb: (pt[g * KP], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, ACC_S, 128),
-                         lambda g, pt, pb: (pt[g * KP], 0, 0),
-                         memory_space=pltpu.VMEM),
-            tri_spec(0), tri_spec(1), tri_spec(2), tri_spec(3),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, ACC_S, 128),
-                         lambda g, pt, pb: (pt[g * KP], 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, ACC_S, 128),
-                         lambda g, pt, pb: (pt[g * KP], 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-    )
+    lst [T, MAX_L] i32 leaf-block ids, nl [T] i32 valid entries per tile;
+    rays8 [8, T*TILE] f32 component-major (o, d, tmin, unused);
+    t_in/p_in [T*TILE] running per-ray best t (doubles as t_max) and
+    padded triangle slot (-1 none); tris16 [16, P'] leaf blocks.
+    Returns the updated (t, slot)."""
+    T = lst.shape[0]
+    R = t_in.shape[0]
+    S = TILE // RB
+    assert R == T * TILE
+    ray_blk = pl.BlockSpec((RB,), lambda t, s: (t * S + s,))
     return pl.pallas_call(
-        _make_sweep_kernel(n_blocks_pad - 1),
-        grid_spec=grid_spec,
-        out_shape=[
-            jax.ShapeDtypeStruct((Tp, ACC_S, 128), jnp.float32),
-            jax.ShapeDtypeStruct((Tp, ACC_S, 128), jnp.int32),
+        functools.partial(_sweep_kernel, tc=TC),
+        grid=(T, S),
+        in_specs=[
+            pl.no_block_spec,                                   # lst
+            pl.no_block_spec,                                   # nl
+            pl.BlockSpec((8, RB), lambda t, s: (0, t * S + s)),  # rays8
+            ray_blk,                                            # t_in
+            ray_blk,                                            # p_in
+            pl.no_block_spec,                                   # tris16
         ],
-        # accumulators alias: blocks a chunk never touches keep their
-        # prior values (operands: pt, pb, rays8, t_in, prim_in, tris x4)
-        input_output_aliases={3: 0, 4: 1},
+        out_specs=[ray_blk, ray_blk],
+        out_shape=[jax.ShapeDtypeStruct((R,), jnp.float32),
+                   jax.ShapeDtypeStruct((R,), jnp.int32)],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=NUM_STAGES),
+        name="leaf_sweep",
         interpret=interpret,
-    )(pair_tile, pair_block, rays8, t_in, prim_in,
-      tris16, tris16, tris16, tris16)
+    )(lst, nl, rays8, t_in, p_in, tris16)
+
+
+def sweep_leaves_ref(lst, nl, rays8, t_in, p_in, tris16):
+    """Plain jnp reference of `sweep_leaves` (same arguments, same
+    result): per list slot, gather every tile's leaf block and fold the
+    [T, TILE, LEAF_W] Moller-Trumbore minimum."""
+    T = lst.shape[0]
+    r = rays8.reshape(8, T, TILE, 1)
+    o, d, tmin = (r[0], r[1], r[2]), (r[3], r[4], r[5]), r[6]
+    blocks = tris16[:9].reshape(9, -1, LEAF_W)
+
+    def slot(j, carry):
+        tb, pb = carry
+        b = lst[:, j]
+        blk = blocks[:, b][:, :, None, :]                  # [9, T, 1, LEAF_W]
+        live = (j < nl)[:, None]
+        t2, p2 = _mt_fold(o, d, tmin, tb, pb, lambda k: blk[k],
+                          (b * LEAF_W)[:, None], LEAF_W)
+        return jnp.where(live, t2, tb), jnp.where(live, p2, pb)
+
+    tb, pb = lax.fori_loop(0, jnp.max(nl), slot,
+                           (t_in.reshape(T, TILE), p_in.reshape(T, TILE)))
+    return tb.reshape(-1), pb.reshape(-1)
 
 
 # ---------------------------------------------------------------------------
 # Phase A: dense per-ray culling. With ~LEAF_W-triangle leaves the leaf
 # count is small (B ~ prims/100), so instead of walking a tree we slab-
-# test EVERY ray against EVERY leaf box as a fused [R, B] vector op and
-# top_k each tile's entered blocks into per-tile lists. O(R*B) of
-# ~20-flop tests is cheap on the VPU up to tens of millions of
-# triangles, and unlike a tile-frustum test it stays EXACT for
-# direction-incoherent secondary bounces.
+# test EVERY ray against EVERY leaf box as a fused [R, B] elementwise
+# op and top_k each tile's entered blocks into per-tile lists. It stays
+# EXACT for direction-incoherent secondary bounces, unlike a
+# tile-frustum test.
 
 def _frusta(o, d, tmin, tmax, live, T):
     """Per-tile conservative interval bounds:
@@ -236,7 +236,7 @@ def _dense_cull(wb: WideBVH, frus, tmax_t, swept):
     newly = jnp.zeros((T, B), bool).at[
         jnp.arange(T)[:, None], jnp.clip(lst, 0, B - 1)].max(got)
     swept = swept | newly
-    nl = jnp.minimum(count, MAX_L)
+    nl = jnp.minimum(count, MAX_L).astype(jnp.int32)
     done = count <= MAX_L
     return lst, nl, swept, done
 
@@ -247,13 +247,13 @@ def _perray_candidates(wb: WideBVH, o_s, inv_s, tmin_s, t_cap, live):
 
     The tile-frustum interval test collapses for direction-mixed tiles
     (secondary bounces): reciprocal intervals straddling zero make the
-    conservative bound infinite, so EVERY leaf block became a candidate
-    and incoherent throughput was ~1% of coherent. Testing each RAY
-    against each block costs a dense fused [R, B] slab test (~20 flops
-    per pair on the VPU). Wave bodies then just CONSUME successive
-    windows of the sorted list with a per-tile pointer — no re-culling,
-    and the ascending entry order makes the per-wave acceptance test a
-    prefix check against the tile's tightening t bound.
+    conservative bound infinite, so EVERY leaf block becomes a
+    candidate. Testing each RAY against each block costs a dense fused
+    [R, B] slab test (~20 flops per pair). Wave bodies then just
+    CONSUME successive windows of the sorted list with a per-tile
+    pointer — no re-culling, and the ascending entry order makes the
+    per-wave acceptance test a prefix check against the tile's
+    tightening t bound.
 
     Dead lanes dominate secondary bounces (they sort to the end), so
     the slab test runs through a while_loop over 64-tile chunks that
@@ -265,9 +265,9 @@ def _perray_candidates(wb: WideBVH, o_s, inv_s, tmin_s, t_cap, live):
     R = o_s.shape[0]
     T = R // TILE
     B = wb.block_lo.shape[0]
-    TC = 64                                   # tiles per chunk
-    nT = -(-T // TC)
-    pad_t = nT * TC - T
+    TC_ = 64                                  # tiles per chunk
+    nT = -(-T // TC_)
+    pad_t = nT * TC_ - T
 
     o_p = jnp.pad(o_s, ((0, pad_t * TILE), (0, 0)))
     i_p = jnp.pad(inv_s, ((0, pad_t * TILE), (0, 0)))
@@ -279,28 +279,28 @@ def _perray_candidates(wb: WideBVH, o_s, inv_s, tmin_s, t_cap, live):
     bhi = wb.block_hi
 
     # live tiles are a sorted prefix: stop chunking at the last one
-    live_tiles = jnp.any(live_p.reshape(nT * TC, TILE), -1)
+    live_tiles = jnp.any(live_p.reshape(nT * TC_, TILE), -1)
     n_live_chunks = jnp.max(jnp.where(
-        jnp.any(live_tiles.reshape(nT, TC), -1),
+        jnp.any(live_tiles.reshape(nT, TC_), -1),
         jnp.arange(nT, dtype=jnp.int32) + 1, 0))
 
     def chunk_at(c, Lt):
-        s = c * TC * TILE
-        oc = lax.dynamic_slice(o_p, (s, 0), (TC * TILE, 3))
-        ic = lax.dynamic_slice(i_p, (s, 0), (TC * TILE, 3))
-        tminc = lax.dynamic_slice(tmin_p, (s,), (TC * TILE,))
-        tcapc = lax.dynamic_slice(tcap_p, (s,), (TC * TILE,))
-        livec = lax.dynamic_slice(live_p, (s,), (TC * TILE,))
+        s = c * TC_ * TILE
+        oc = lax.dynamic_slice(o_p, (s, 0), (TC_ * TILE, 3))
+        ic = lax.dynamic_slice(i_p, (s, 0), (TC_ * TILE, 3))
+        tminc = lax.dynamic_slice(tmin_p, (s,), (TC_ * TILE,))
+        tcapc = lax.dynamic_slice(tcap_p, (s,), (TC_ * TILE,))
+        livec = lax.dynamic_slice(live_p, (s,), (TC_ * TILE,))
         t1 = (blo[None, :, :] - oc[:, None, :]) * ic[:, None, :]
         t2 = (bhi[None, :, :] - oc[:, None, :]) * ic[:, None, :]
         L = jnp.maximum(jnp.max(jnp.minimum(t1, t2), -1), tminc[:, None])
         U = jnp.min(jnp.maximum(t1, t2), -1)
         ok = (L <= U * 1.0001) & (L <= tcapc[:, None]) & livec[:, None]
-        Lm = jnp.where(ok, L, jnp.inf)        # [TC*TILE, B]
-        Lc = jnp.min(Lm.reshape(TC, TILE, B), axis=1)
-        return lax.dynamic_update_slice(Lt, Lc, (c * TC, 0))
+        Lm = jnp.where(ok, L, jnp.inf)        # [TC_*TILE, B]
+        Lc = jnp.min(Lm.reshape(TC_, TILE, B), axis=1)
+        return lax.dynamic_update_slice(Lt, Lc, (c * TC_, 0))
 
-    Lt0 = jnp.full((nT * TC, B), jnp.inf, jnp.float32)
+    Lt0 = jnp.full((nT * TC_, B), jnp.inf, jnp.float32)
     Lt = lax.while_loop(
         lambda s: s[0] < n_live_chunks,
         lambda s: (s[0] + 1, chunk_at(s[0], s[1])),
@@ -358,12 +358,11 @@ def _coherence_sort(o, d, world_lo, world_hi):
 
 
 def _sort_rays(o, d, tmin, tmax, world_lo, world_hi):
-    """Coherence-sort rays. Row gathers are slow on TPU, so the ray
-    columns ride along as lax.sort payload operands instead of being
-    gathered through argsort indices. Returns sorted columns + the
-    original index column (for the payload-unsort at the end).
-    Dead rays (tmax <= tmin) sort to the end, packing themselves into
-    all-dead tiles that generate no sweep pairs."""
+    """Coherence-sort rays. The ray columns ride along as lax.sort
+    payload operands (one sort, no gathers through argsort indices).
+    Returns sorted columns + the original index column (for the
+    payload-unsort at the end). Dead rays (tmax <= tmin) sort to the
+    end, packing themselves into all-dead tiles with empty leaf lists."""
     key = _coherence_sort(o, d, world_lo, world_hi)
     key = jnp.where(tmax > tmin, key, jnp.uint32(0xFFFFFFFF))
     idx = jnp.arange(o.shape[0], dtype=jnp.int32)
@@ -374,34 +373,6 @@ def _sort_rays(o, d, tmin, tmax, world_lo, world_hi):
     o_s = jnp.stack([ox, oy, oz], -1)
     d_s = jnp.stack([dx, dy, dz], -1)
     return o_s, d_s, tmn, tmx, idx_s
-
-
-def _compact_pairs(lst, nl, T, sentinel_block):
-    """[T, MAX_L] lists -> flat tile-sorted pair arrays. Per-tile counts
-    are rounded up to KP so each grid step's KP sub-pairs share one tile
-    (padding sub-pairs carry the sentinel BLOCK, whole-step padding the
-    sentinel TILE T). Returns (pair_tile, pair_block, total)."""
-    nl_pad = (nl + (KP - 1)) // KP * KP
-    mask = (jnp.arange(MAX_L)[None, :] < nl_pad[:, None])
-    flat_v = mask.reshape(-1)
-    flat_b = lst.reshape(-1)   # sentinel-block beyond nl (top_k padding)
-    tiles = jnp.broadcast_to(jnp.arange(T, dtype=jnp.int32)[:, None],
-                             (T, MAX_L)).reshape(-1)
-    start = jnp.cumsum(nl_pad) - nl_pad          # per-tile start offset
-    pos = (jnp.broadcast_to(start[:, None], (T, MAX_L))
-           + jnp.arange(MAX_L)[None, :]).reshape(-1)
-    total = jnp.sum(nl_pad)
-    n_slots = T * MAX_L
-    size = n_slots + PAIR_CHUNK  # slack so dynamic_slice never clamps short
-    dump = size - 1
-    idx = jnp.where(flat_v, pos, dump)
-    pair_tile = jnp.full((size,), T, jnp.int32).at[idx].set(
-        jnp.where(flat_v, tiles, T))
-    pair_block = jnp.full((size,), sentinel_block, jnp.int32).at[idx].set(
-        jnp.where(flat_v, flat_b, sentinel_block))
-    pair_tile = pair_tile.at[dump].set(T)
-    pair_block = pair_block.at[dump].set(sentinel_block)
-    return pair_tile, pair_block, total
 
 
 @functools.partial(jax.jit,
@@ -416,13 +387,8 @@ def _wide_t_pass_chunk(wb: WideBVH, o, d, tmin, tmax, any_hit=False,
     frus = (_frusta(o_s, d_s, tmin_s, tmax_s, live_s, T)
             if coherent else None)
 
-    rays8 = jnp.concatenate([
-        o_s, d_s, tmin_s[:, None],
-        jnp.where(jnp.isfinite(tmax_s), tmax_s, BIG)[:, None],
-    ], -1)
-    # one extra (dead) tile of rays for sentinel pairs
-    rays8p = jnp.concatenate(
-        [rays8, jnp.zeros((TILE, 8), jnp.float32)], 0)
+    rays8 = jnp.concatenate([o_s.T, d_s.T, tmin_s[None, :],
+                             jnp.zeros((1, R), jnp.float32)], 0)
 
     # cap the pruning bound at the world-bbox exit: no hit can lie
     # beyond it, and it keeps miss rays from pinning their tile's
@@ -435,33 +401,21 @@ def _wide_t_pass_chunk(wb: WideBVH, o, d, tmin, tmax, any_hit=False,
     exit_t = jnp.min(jnp.maximum(t_a, t_b), -1) * 1.001 + 1e-4
     cap = jnp.minimum(jnp.where(jnp.isfinite(tmax_s), tmax_s, BIG),
                       jnp.maximum(exit_t, 0.0))
-    t_best = jnp.where(live_s, cap, -BIG)
-    t3 = jnp.concatenate(
-        [t_best.reshape(T, ACC_S, 128), jnp.full((1, ACC_S, 128), -BIG)], 0)
-    p3 = jnp.full((T + 1, ACC_S, 128), -1, jnp.int32)
+    t_acc = jnp.where(live_s, cap, -BIG)
+    p_acc = jnp.full((R,), -1, jnp.int32)
     done = jnp.zeros((T,), bool)
 
-    def sweep_lists(lst, nl, t3, p3):
-        pair_tile, pair_block, total = _compact_pairs(lst, nl, T, wb.n_blocks)
+    def sweep(lst, nl, t_acc, p_acc):
+        return sweep_leaves(lst, nl, rays8, t_acc, p_acc, wb.tris16,
+                            interpret=interpret)
 
-        def chunk_body(c, carry):
-            t3, p3 = carry
-            off = c * PAIR_CHUNK
-            pt = lax.dynamic_slice(pair_tile, (off,), (PAIR_CHUNK,))
-            pb = lax.dynamic_slice(pair_block, (off,), (PAIR_CHUNK,))
-            return _sweep_pairs(pt, pb, rays8p, t3, p3, wb.tris16,
-                                interpret=interpret)
-
-        n_chunks = (total + PAIR_CHUNK - 1) // PAIR_CHUNK
-        return lax.fori_loop(0, n_chunks, chunk_body, (t3, p3))
-
-    def tile_bound(t3, p3):
+    def tile_bound(t_acc, p_acc):
         # per-tile farthest useful t; any-hit (shadow) queries retire a
         # lane at its FIRST hit — the reference's dedicated IntersectP
         # early-out (bvh.cpp:639-687)
-        cap_lane = t3[:T].reshape(T, TILE)
+        cap_lane = t_acc.reshape(T, TILE)
         if any_hit:
-            hit_lane = (p3[:T] >= 0).reshape(T, TILE)
+            hit_lane = (p_acc >= 0).reshape(T, TILE)
             return jnp.max(jnp.where(hit_lane, -BIG, cap_lane), 1)
         return jnp.max(cap_lane, 1)
 
@@ -472,45 +426,35 @@ def _wide_t_pass_chunk(wb: WideBVH, o, d, tmin, tmax, any_hit=False,
     #               per-tile candidate lists; waves consume successive
     #               windows via a pointer. For direction-mixed secondary
     #               bounces the frustum degenerates to "sweep
-    #               everything" (round-3 incoherent rate was ~1% of
-    #               coherent).
+    #               everything".
     if coherent:
         swept = jnp.zeros((T, wb.block_lo.shape[0]), bool)
 
-        def wave_cond(s):
-            swept, done, t3, p3, w = s
-            return jnp.any(~done) & (w < 64)
-
         def wave_body(s):
-            swept, done, t3, p3, w = s
+            swept, done, t_acc, p_acc, w = s
             lst, nl, swept, done = _dense_cull(
-                wb, frus, tile_bound(t3, p3), swept)
-            t3, p3 = sweep_lists(lst, nl, t3, p3)
-            return swept, done, t3, p3, w + 1
+                wb, frus, tile_bound(t_acc, p_acc), swept)
+            t_acc, p_acc = sweep(lst, nl, t_acc, p_acc)
+            return swept, done, t_acc, p_acc, w + 1
 
-        _, _, t3, p3, _ = lax.while_loop(
-            wave_cond, wave_body, (swept, done, t3, p3, jnp.int32(0)))
+        init = swept
     else:
         cand_L, cand_b, count = _perray_candidates(
             wb, o_s, inv_s, tmin_s, cap, live_s)
-        ptr = jnp.zeros((T,), jnp.int32)
-
-        def wave_cond(s):
-            ptr, done, t3, p3, w = s
-            return jnp.any(~done) & (w < 64)
 
         def wave_body(s):
-            ptr, done, t3, p3, w = s
+            ptr, done, t_acc, p_acc, w = s
             lst, nl, ptr, done = _window_cull(
-                cand_L, cand_b, count, ptr, tile_bound(t3, p3),
+                cand_L, cand_b, count, ptr, tile_bound(t_acc, p_acc),
                 wb.n_blocks)
-            t3, p3 = sweep_lists(lst, nl, t3, p3)
-            return ptr, done, t3, p3, w + 1
+            t_acc, p_acc = sweep(lst, nl, t_acc, p_acc)
+            return ptr, done, t_acc, p_acc, w + 1
 
-        _, _, t3, p3, _ = lax.while_loop(
-            wave_cond, wave_body, (ptr, done, t3, p3, jnp.int32(0)))
-    t_best = t3[:T].reshape(R)
-    prim = p3[:T].reshape(R)
+        init = jnp.zeros((T,), jnp.int32)
+
+    _, _, t_best, prim, _ = lax.while_loop(
+        lambda s: jnp.any(~s[1]) & (s[4] < 64), wave_body,
+        (init, done, t_acc, p_acc, jnp.int32(0)))
 
     # padded-slot -> global prim id; then undo the coherence sort
     # (payload-sort by the original index — no scatter)
@@ -529,7 +473,9 @@ def wide_t_pass(wb: WideBVH, ray_o, ray_d, tmin, tmax, any_hit=False,
     occlusion semantics — lanes retire at the first confirmed hit (the
     returned t is then SOME hit, not the nearest). coherent: caller
     vouches the batch is beam-like (camera/shadow rays) — selects the
-    cheap tile-frustum cull instead of the per-ray slab cull."""
+    cheap tile-frustum cull instead of the per-ray slab cull.
+    interpret: run the leaf-sweep kernel in the Pallas interpreter
+    (CPU tests)."""
     R = ray_o.shape[0]
     Rpad = max(TILE, (R + TILE - 1) // TILE * TILE)
     if Rpad != R:

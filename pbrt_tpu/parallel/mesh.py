@@ -1,8 +1,8 @@
-"""Device-mesh parallelism: the TPU replacement for the pthread pool.
+"""Device-mesh parallelism: the replacement for the pthread pool.
 
 The reference's only parallelism is a shared-memory task queue
 (reference core/parallel.cpp:722-879, SURVEY.md section 2.4). The
-TPU-native equivalents:
+device-mesh equivalents:
 
 - pixel/ray tiles   -> batch axis sharded over a 1D "rays" mesh via
                        shard_map (the analog of SamplerRendererTask
@@ -13,8 +13,9 @@ TPU-native equivalents:
                        the film's atomic float adds, image.cpp:130)
 - gradients         -> psum over the mesh inside the backward pass
 
-All collectives ride ICI by construction (one mesh axis, no host
-round-trips inside the step).
+One mesh axis and no host round-trips inside the step; the mesh
+assumes no topology (every card of a host reaches every other over
+NVLink at the same rate).
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ def replicate(mesh: Mesh, tree):
 
 def gather_replicated(mesh: Mesh, tree):
     """Device-side merge of a batch-sharded pytree: jit with replicated
-    out_shardings makes XLA insert the all_gather on ICI — the
+    out_shardings makes XLA insert the all_gather over NVLink — the
     multi-host-correct shape of the reference's photon-merge mutex
     (core/photonshooter.cpp:280-355). After this, every process holds
     the full arrays locally (addressable), so a host fetch is local."""

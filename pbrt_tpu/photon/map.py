@@ -2,22 +2,19 @@
 
 Replaces the reference's KdTree<Photon> + ClosePhoton max-heap kNN
 (reference core/kdtree.h:63-186, core/photonshooter.h:186-203). The
-TPU form (SURVEY.md section 7): photons sorted by uniform-grid cell id;
+batched form (SURVEY.md section 7): photons sorted by uniform-grid cell id;
 cell start offsets by binary search; a kNN lookup gathers the 3x3x3
 neighbor cells (capped per cell), computes squared distances and
 top-k's them — fixed shapes, no heap, fully batched over query points.
 
-TPU memory shaping (round-4 redesign, round-5 gather layout):
+Memory shaping:
   * Coordinates and directions are stored PACKED as [P, 4] rows
-    (xyz + pad): a row gather [Q, M, 4] is ~6x faster than three
-    scalar gathers of split [P] component arrays (measured 10ms vs
-    60ms per 4096x648 block on-chip) because the 16-byte rows are
-    contiguous; XLA consumes the gathered rows in the fused distance
-    computation without materializing a 4->128 lane-padded temp (the
-    round-3 OOM came from materializing [Q, M, 3] candidate tensors;
-    the fused consumer avoids that).
+    (xyz + pad): one gather moves a contiguous 16-byte row instead of
+    three scalar gathers of split [P] component arrays; XLA consumes
+    the gathered rows in the fused distance computation without
+    materializing [Q, M, 3] candidate tensors.
   * Spectra are stored TRANSPOSED [S, P] so the per-candidate gather
-    [S, Q, K] pads on K (a real axis), not on S=30 -> 128.
+    is [S, Q, K], contiguous along the candidate axis.
   * The kNN lookups are two-phase (top-k on distances only, then
     gather k spectra) and FUSED: `knn_weighted_flux` takes a per-photon
     weight function and reduces to [Q, S] inside a query-blocked
@@ -255,9 +252,8 @@ def _topk_phase(pm, qb, k: int, max_dist2: float, per_cell_cap: int):
     valid = jnp.isfinite(d2k)
     gi = jnp.take_along_axis(idx, top_i, axis=1)
     # dense-cell truncation correction from the photon's cell
-    # occupancy (a [P]-array gather like wix/wiy — NOT a gather of a
-    # broadcast [B, M] tensor, which faulted the TPU compiler inside
-    # the photonvolume march program)
+    # occupancy (a [P]-array gather like wix/wiy, not a gather of a
+    # broadcast [B, M] tensor)
     if pm.occ is not None:
         invf_k = jnp.maximum(pm.occ[gi] / float(per_cell_cap), 1.0)
     else:

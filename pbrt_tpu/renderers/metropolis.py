@@ -5,7 +5,7 @@ camera+light streams (:53-77), LargeStep/SmallStep mutations with
 exponentially-distributed jitter (:79-198), bootstrap to estimate the
 normalization b, and film Splat accumulation.
 
-TPU re-design: instead of nTasks independent serial chains, we run a
+Wavefront re-design: instead of nTasks independent serial chains, we run a
 WAVEFRONT of W chains in lockstep. Each chain's state is its
 primary-sample vector u in [0,1)^D (D = dims consumed by a path of
 maxdepth bounces). One jitted step mutates all chains, evaluates the

@@ -1,7 +1,7 @@
 """surfacepoints renderer: Poisson-ish point sampling of scene surfaces.
 
 Replaces reference renderers/surfacepoints.cpp:114-285 (ray-repulsion
-point generation written to a file consumed by dipolesubsurface). TPU
+point generation written to a file consumed by dipolesubsurface). Batched
 form: area-weighted sampling of the triangle/quadric soup followed by
 Poisson-disk thinning on the host — deterministic, no mutating octree.
 """

@@ -2,7 +2,7 @@
 
 Replaces reference samplers/*.cpp + core/sampler.h. The reference's
 Sampler contract (GetMoreSamples / GetSubSampler window decomposition)
-is a CPU-iterator design; the TPU form generates ALL samples for a
+is a CPU-iterator design; the wavefront form generates ALL samples for a
 pixel batch at once as flat arrays — the "sub-sampler window" becomes
 the wavefront tile the render driver shards over devices.
 

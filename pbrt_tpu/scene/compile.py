@@ -1,6 +1,6 @@
 """Scene compiler: host records -> device tensors.
 
-The TPU-native analog of RenderOptions::MakeScene + MakeRenderer
+The tensor analog of RenderOptions::MakeScene + MakeRenderer
 (reference core/api.cpp:1197-1288): instead of instantiating a
 Primitive/Light object graph, lower everything to struct-of-arrays
 tensors (SceneGeom, LightsT, VolumeT) plus a small host-side list of
@@ -143,7 +143,7 @@ def compile_scene(ro: RenderOptions, accel_threshold: int = 64) -> CompiledScene
 
     Scenes with more than accel_threshold primitives get a BVH
     (split method from the Accelerator statement); tiny scenes stay on
-    the brute-force blocked scan, which is faster on TPU at that size.
+    the brute-force blocked scan, which XLA fuses into one loop.
     """
     materials: List[MaterialRecord] = []
     mat_index: Dict[int, int] = {}

@@ -213,7 +213,7 @@ def _make_heightfield(params: ParamSet, o2w: Transform) -> Optional[TriangleData
 def tessellate_quadric(q: QuadricData, n_phi: int = 64, n_v: int = 16):
     """Quadric -> world-space triangle soup (v0 [T,3], e1, e2, area [T])
     for area-light sampling (the reference samples emissive shapes
-    directly via ShapeSet, core/light.h:135-153; on TPU the light
+    directly via ShapeSet, core/light.h:135-153; here the light
     sampler draws from triangle tensors, so non-sphere emitters are
     tessellated here at compile time — geometry intersection still uses
     the analytic quadric).

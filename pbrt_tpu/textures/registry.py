@@ -397,7 +397,7 @@ class ImageMapTexture(Texture):
     core/mipmap.h). Stores a full mip pyramid. Filtering follows the
     reference's contract: EWA anisotropic filtering by DEFAULT
     (core/mipmap.h:50-97, `doTrilinear` defaults false), trilinear only
-    when the scene asks for it. The EWA form is TPU-shaped: instead of
+    when the scene asks for it. The EWA form has a fixed shape: instead of
     the reference's dynamic-extent ellipse raster loop (mipmap.h EWA),
     a FIXED number of Gaussian-weighted bilinear taps along the
     footprint's major axis, at the mip level set by the minor axis —

@@ -1,7 +1,7 @@
 """Decompose path-render time: t-pass vs shadow any-hit vs shading.
 
-Run on the TPU to find where the non-traversal 80% goes (VERDICT r3
-item 4). Times, for the bench scene at 1024^2:
+Run on the GPU to find where the non-traversal time goes. Times, for
+the bench scene at 1024^2:
   - closest-hit t-pass        (1 bounce equivalent)
   - any-hit shadow pass       (new early-out path)
   - reconstruct (diffgeom)

@@ -177,9 +177,8 @@ def test_kdtree_params_factory():
 
 
 def test_wide_bvh_matches_brute():
-    """TPU packet pipeline (wide-leaf blocks + dense cull + pair sweep)
-    vs brute force; interpret mode makes the Pallas kernel portable."""
-    import jax
+    """Packet pipeline (wide-leaf blocks + culling + Pallas leaf sweep)
+    vs brute force; the Triton kernel runs in the Pallas interpreter."""
     from pbrt_tpu.accel.wide_bvh import build_wide_bvh
     from pbrt_tpu.ops.bvh_pallas import wide_t_pass
 
@@ -187,9 +186,8 @@ def test_wide_bvh_matches_brute():
     narrow = build_bvh(geom, "sah")
     wb = build_wide_bvh(narrow, geom)
     ray = _random_rays(512, seed=4)
-    interp = jax.default_backend() != "tpu"
     t_w, p_w = wide_t_pass(wb, ray.o, ray.d, ray.tmin, ray.tmax,
-                           interpret=interp)
+                           interpret=True)
     t_b, p_b = t_pass_brute(geom, ray)
     hit_w = np.asarray(p_w) >= 0
     hit_b = np.asarray(p_b) >= 0
@@ -200,21 +198,19 @@ def test_wide_bvh_matches_brute():
 
 
 def test_wide_bvh_dead_rays_and_tmax():
-    import jax
     from pbrt_tpu.accel.wide_bvh import build_wide_bvh
     from pbrt_tpu.ops.bvh_pallas import wide_t_pass
 
     geom = _random_tri_geom(300, seed=8)
     wb = build_wide_bvh(build_bvh(geom, "sah"), geom)
     ray = _random_rays(256, seed=6)
-    interp = jax.default_backend() != "tpu"
     t_b, p_b = t_pass_brute(geom, ray)
     # shortened tmax excludes every hit
     t_short = jnp.where(jnp.asarray(p_b) >= 0, jnp.asarray(t_b) * 0.5, 0.1)
     _, p_w = wide_t_pass(wb, ray.o, ray.d, ray.tmin, t_short,
-                         interpret=interp)
+                         interpret=True)
     assert not np.any(np.asarray(p_w) >= 0)
     # dead rays (empty interval) never report hits
     dead = jnp.full_like(ray.tmax, -1.0)
-    _, p_w2 = wide_t_pass(wb, ray.o, ray.d, ray.tmin, dead, interpret=interp)
+    _, p_w2 = wide_t_pass(wb, ray.o, ray.d, ray.tmin, dead, interpret=True)
     assert not np.any(np.asarray(p_w2) >= 0)

@@ -1,4 +1,4 @@
-"""Full-resolution flagship parity (VERDICT r4 item 3): the reference
+"""Full-resolution flagship parity: the reference
 project's own configurations at full scale, diffed against
 reference-binary renders — the strongest parity statement, replacing
 the 64-96 pixel crops.
@@ -106,7 +106,7 @@ def test_rainbow_full_1024_8spp():
     both are MC estimates of the same converged image, and comparing
     8x-downsampled full-res blocks against the golden's 4x blocks puts
     them on the identical 128-wide block grid. This pins the TRUE
-    flagship config end-to-end on-chip (VERDICT r4 item 3) and records
+    flagship config end-to-end on the device and records
     its wall-clock."""
     ours = _render_corpus("rainbow_png.pbrt")
     assert ours.shape[1] == 1024 and ours.shape[0] == 1025, ours.shape

@@ -1,6 +1,6 @@
 """Direct tests for the long-tail components that previously only ran
 inside scene smoke tests: goniometric/projection lights and the
-loopsubdiv/nurbs tessellators (VERDICT r4 weak item 8)."""
+loopsubdiv/nurbs tessellators."""
 import numpy as np
 import jax.numpy as jnp
 import pytest

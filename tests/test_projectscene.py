@@ -1,8 +1,8 @@
 """projectScene corpus gate.
 
 The reference ships 10 scene files (reference projectScene/*.pbrt) that
-are its de-facto acceptance fixtures (SURVEY.md section 4.6). Round 3
-shipped a TPU compile regression invisibly because nothing rendered
+are its de-facto acceptance fixtures (SURVEY.md section 4.6). A
+compile regression once shipped invisibly because nothing rendered
 them; this module pins the corpus:
 
   * every corpus scene must PARSE through the full api state machine
@@ -119,7 +119,7 @@ def test_rainbow_png_renders():
 @pytest.mark.parametrize("name", ["scene.pbrt", "rainbow_png.pbrt"])
 def test_flagship_quick(name, tmp_path):
     """The true --quick configuration (reference --quick flag semantics:
-    quarter resolution, reduced photon quotas) — the round-3 TPU OOM
+    quarter resolution, reduced photon quotas) — an out-of-memory
     repro. Must produce a finite image on the default backend."""
     out = tmp_path / "quick.pfm"
     api.pbrt_init({"quiet": True, "quick": True, "write": False,

@@ -38,7 +38,7 @@ CASES = [
     # samples (core/octree.h:58); this build re-evaluates hemispheric
     # irradiance per hit — same estimator, different interpolation
     # error, so the mean must agree while pixels differ by cache
-    # artifacts (VERDICT r4 missing item 5: first output comparison)
+    # artifacts
     ("irr", 0.08, 0.20),
     # diffuse PRT: SH-projected transfer x SH-projected lighting
     # (reference integrators/diffuseprt.cpp:100) — validates the SH

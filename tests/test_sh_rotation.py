@@ -55,7 +55,7 @@ def test_zh_reprojection_is_exact_rotation():
     li_glossyprt). Verify that identity against the full rotation
     machinery — i.e. the re-projection IS the exact SH rotation of a
     ZH lobe, so the only approximation in glossyprt is the
-    Torrance->ZH fit itself (VERDICT r4 missing item 3)."""
+    Torrance->ZH fit itself."""
     rng = np.random.RandomState(11)
     lmax = 4
     T = shm.sh_terms(lmax)
